@@ -12,8 +12,8 @@ Configs (BENCH_CONFIG):
   chr20           — 64 Mbp, the "GRCh38 chr20" scale config.
 BENCH_PAIRS=N scales the read count.
 
-The built index image is cached in /tmp keyed by (config, seed) so
-repeated runs skip construction.  vs_baseline: ratio against one bwa-mem
+The built index image is cached in .bench_cache/ keyed by (config, seed)
+so repeated runs skip construction.  vs_baseline: ratio against one bwa-mem
 CPU thread's typical ~5k reads/s on 150bp PE (the reference publishes no
 numbers — BASELINE.md documents the absence).
 """
@@ -53,7 +53,10 @@ def main():
     # sa_intv=8: denser sampled SA (pure space/time knob; output-identical,
     # ~4x shorter SA walks — see index/build.py::build_index docstring)
     sa_intv = int(os.environ.get("BWAMEM_TPU_SA_INTV", "8"))
-    img = f"/tmp/bench_ref_{cfg_name}_{seed}_sa{sa_intv}.img"
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         ".bench_cache")
+    os.makedirs(cache, exist_ok=True)
+    img = os.path.join(cache, f"bench_ref_{cfg_name}_{seed}_sa{sa_intv}.img")
     if not os.path.exists(img):
         idx_obj = build_index(
             Fasta([FastaContig("chr", "", codes)]), sa_intv=sa_intv

@@ -60,7 +60,12 @@ def main():
     print(f"[{LABEL}] synthesized {REF_LEN/1e9:.2f} Gbp in {t_synth:.0f}s",
           flush=True)
 
-    img = f"/tmp/{LABEL}_ref.img"
+    cache = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench_cache",
+    )
+    os.makedirs(cache, exist_ok=True)
+    img = os.path.join(cache, f"{LABEL}_ref.img")
     reuse = os.environ.get("GBP_REUSE_IMG") == "1" and os.path.exists(img)
     if reuse:
         # align-phase re-measurement against an image built by a prior

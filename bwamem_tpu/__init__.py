@@ -1,10 +1,10 @@
-"""bwamem_tpu — a TPU-native BWA-MEM-class short-read aligner.
+"""bwamem_tpu — a BWA-MEM-class short-read aligner on JAX.
 
 Ground-up re-implementation of the capability surface of
 broadinstitute/gatk-bwamem-jni (a JNI wrapper over lh3/bwa): FM-index SMEM
 seeding, seed chaining, banded affine-gap Smith-Waterman, paired-end
-statistics and mate rescue — with the compute path built for JAX/XLA/Pallas
-on TPU and a host C++ SA-IS index builder.
+statistics and mate rescue — with the device path built in JAX/XLA
+(run on an NVIDIA GPU) and a host C++ engine and SA-IS index builder.
 
 Public surface mirrors the reference's Java API:
     BwaMemIndex, BwaMemAligner, BwaMemAlignment, BwaMemPairEndStats

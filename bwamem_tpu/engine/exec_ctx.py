@@ -71,14 +71,10 @@ class ExecConfig:
         return bool(v)
 
     def resolve_device_extend(self, n_jobs: int, min_jobs: int) -> bool:
-        """Extension-wave routing: explicit > env > link auto-probe."""
+        """Extension-wave routing: explicit > env; unset means host waves."""
         v = self.device_extend
         if v is None:
             v = _env_bool("BWAMEM_TPU_DEVICE_EXTEND")
-        if v is None:
-            from ..utils import devlink
-
-            return n_jobs >= min_jobs and devlink.device_extend_auto()
         return bool(v) and n_jobs >= min_jobs
 
     def any_device_stage(self) -> bool:

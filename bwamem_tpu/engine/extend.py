@@ -4,8 +4,8 @@ and chain extension ([EXT] bwamem.c: mem_chain2aln).
 These are the reference engine's hot loops (SURVEY.md section 3.3).  This
 module is the exact-semantics host oracle — every comparison and tie-break
 mirrors the scalar definition of the SSE2 kernels, because CIGAR/score parity
-depends on them.  The TPU wavefront kernel (ops/extend_pallas.py) is
-validated cell-for-cell against this.
+depends on them.  The device kernel (ops/extend_tpu.py) is validated
+cell-for-cell against this.
 
 Provenance: ksw_extend2's loop structure/trackers follow upstream bwa's
 ksw.c (MIT license, (c) 2011 by Attractive Chaos); parity with that exact

@@ -174,7 +174,7 @@ def _run_kernel(opt: MemOptions, jobs, bonuses, ws, h0s, exec_cfg=None):
     if exec_cfg is None:
         exec_cfg = _DEFAULT_CFG
     n = len(jobs)
-    # explicit config > BWAMEM_TPU_DEVICE_EXTEND env > link auto-probe
+    # explicit config > BWAMEM_TPU_DEVICE_EXTEND env > host waves
     use_device = exec_cfg.resolve_device_extend(n, HOST_FALLBACK_JOBS)
     _metrics.count("extend_waves")
     if use_device:

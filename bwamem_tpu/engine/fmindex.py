@@ -5,7 +5,7 @@ in-tree by the `mem_process_seqs` call at jnibwa.c:214): Occ rank queries
 over the checkpointed BWT, bidirectional interval extension (bwt_extend
 semantics), and sampled-SA position lookup.  All query entry points are
 vectorized over numpy arrays so the same code services whole batches; the
-TPU path (ops/fmindex_tpu.py) mirrors these semantics and is tested against
+device path (ops/fmindex_tpu.py) mirrors these semantics and is tested against
 this module.
 
 Conceptual coordinates follow bwa: row indices k range over the full

@@ -10,7 +10,7 @@
 // oracle for [EXT] ksw.c's ksw_extend2 behavior: adaptive window with
 // stale-cell semantics, Z-drop, M==0 reset, gscore tie-breaks).  This is
 // the C++ runtime component of the framework (SURVEY.md section 7: native
-// where the reference's runtime is native); the TPU kernel
+// where the reference's runtime is native); the device kernel
 // (ops/extend_tpu.py) covers the device path.
 //
 // C ABI (ctypes; see ../native_ksw.py):
@@ -145,8 +145,8 @@ void ksw_extend_one(const uint8_t* q, int qlen, const uint8_t* t, int tlen,
 // row), and f admits a prefix-max reformulation:
 //     f[j] = max(0, max_{k<j}(tt[k] + k*e_ins) - (j-1)*e_ins),
 //     tt[k] = max(M[k] - oe_ins, 0)
-// — the same lane-prefix-max trick the Pallas device kernel uses
-// (ops/extend_pallas.py), so every cell becomes elementwise plus one
+// — the same prefix-max (cummax) the device kernel uses
+// (ops/extend_tpu.py), so every cell becomes elementwise plus one
 // log-step scan.  Rows >= 16 cells run 8-wide AVX2; narrow rows and
 // non-AVX2 builds use the scalar row.  Bit-exact vs the scalar code and
 // the python oracle (adaptive window stale cells, zdrop ties, later-j

@@ -329,7 +329,7 @@ def _align_regs_batch_native(opt, eng, reads, TIMERS, exec_cfg=None):
         and eng.idx.bns.l_pac <= eng.idx._UNPACK_CACHE_MAX
         # force_waves keeps extension in cross-read device waves
         # (chain2aln_batch) instead of the fused host core — the
-        # mesh/data-parallel path and real-TPU routing use this
+        # mesh/data-parallel path uses this
         and not exec_cfg.want_force_waves()
     )
     if fused:

@@ -17,7 +17,8 @@ from typing import List
 import numpy as np
 
 from ..api.options import MemOptions
-from ..ops.pipeline_fused import pipeline_fused_kernel
+from ..ops.pipeline_fused import OVF_CAUSES, pipeline_fused_kernel
+from ..ops.seed_fused import F_PER_READ, M_SLOTS, R_PER_READ
 from .chain import (
     MEM_HSP_COEF,
     MEM_MINSC_COEF,
@@ -32,9 +33,11 @@ from .seed import SmemIntv, collect_intv
 from .seed_device import _bucket, _get_dfm, _pad_batch, _placer
 
 # fixed device budgets (overflow -> host fallback, counted in metrics)
-S_SLOTS = 64  # seeds per read
-C_SLOTS = 64  # chain slots per read
-R_SLOTS = 16  # regions per read
+# (sized for the repeat-rich 64 Mbp chr20 genome of bench.py: at
+# S/C/R = 256/128/32, 0.6% / 0.8% / 0.3% of its 150 bp reads overflowed)
+S_SLOTS = 512  # seeds per read
+C_SLOTS = 256  # chain slots per read
+R_SLOTS = 64  # regions per read
 _MAT_CACHE: dict = {}
 _REF_CACHE: dict = {}
 
@@ -52,7 +55,7 @@ def _get_dref(idx, mesh=None):
         cdt = np.int64 if big else np.int32
         pac8 = np.asarray(idx.pac, dtype=np.uint8)
         # 32-byte (128-base) rows: extension windows fetch whole rows
-        # (TPU gather cost is per ROW, not per element)
+        # (ops/pipeline_fused.py::_win_codes)
         pad = (-len(pac8)) % 32
         pac8 = np.pad(pac8, (0, pad)).reshape(-1, 32)
         ctg_end = np.asarray(
@@ -116,6 +119,7 @@ def regs_batch_fused(
     import jax.numpy as jnp
 
     from ..utils import metrics as _metrics
+    from ..utils.timers import TIMERS
     from . import native_fm
 
     n = len(reads)
@@ -133,8 +137,7 @@ def regs_batch_fused(
     fcs_j = place(fcs)
     _metrics.count("device_fused_pipeline_batches")
 
-    r_per_read, f_per_read = 16, 24
-    R_cap, F_cap = B * r_per_read, B * f_per_read
+    R_cap, F_cap = B * R_PER_READ, B * F_PER_READ
     mat_key = np.asarray(opt.mat, dtype=np.int8).tobytes()
     mat_d = _MAT_CACHE.get(mat_key)
     if mat_d is None:
@@ -143,7 +146,7 @@ def regs_batch_fused(
         )
     from .chain import Chain  # noqa: F401  (fallback path builds chains)
 
-    with dfm.ctx():
+    with dfm.ctx(), TIMERS.stage("fused_program"):
         out = pipeline_fused_kernel(
             dfm.lines, dfm.L2, dfm.sa, pac8, ctg_end, ctg_off, ctg_alt,
             qseq, qlen_j, fcs_j, mat_d,
@@ -152,7 +155,7 @@ def regs_batch_fused(
             min_seed_len=opt.min_seed_len, split_len=opt.split_len,
             split_width=opt.split_width,
             max_mem_intv=int(opt.max_mem_intv), max_occ=opt.max_occ,
-            M=48, R_cap=R_cap, F_cap=F_cap,
+            M=M_SLOTS, R_cap=R_cap, F_cap=F_cap,
             S=S_SLOTS, C=C_SLOTS, R=R_SLOTS, T_cap=_t_cap(opt, L),
             a=opt.a, o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
             e_ins=opt.e_ins, zdrop=opt.zdrop, pen_clip5=opt.pen_clip5,
@@ -164,7 +167,7 @@ def regs_batch_fused(
             mask_level=float(opt.mask_level),
             drop_ratio=float(opt.drop_ratio),
         )
-    flat, extra, regs_c, regs_i, info = jax.device_get(out)
+        flat, extra, regs_c, regs_i, info = jax.device_get(out)
     flat = np.asarray(flat, dtype=np.int64)
     extra = np.asarray(extra, dtype=np.int64)
     regs_c = np.asarray(regs_c, dtype=np.int64)
@@ -195,6 +198,10 @@ def regs_batch_fused(
 
     nregs = info[:, 0]
     povf = info[:, 1] != 0
+    for cause, b in OVF_CAUSES.items():
+        k = int(((info[:n, 1] & b) != 0).sum())
+        if k:
+            _metrics.count(f"device_fused_pipeline_fallbacks_{cause}", k)
     out_regs: List[List[AlnReg]] = []
     for r in range(n):
         # intervals decode (shared by fallback and frac_rep)

@@ -12,7 +12,7 @@ path under mem_process_seqs (jnibwa.c:214):
      min_seed_len.
 
 Intervals carry (x0, x1, s) bi-interval coordinates plus query [qb, qe).
-This is the host oracle; the batched TPU path mirrors it in ops/.
+This is the host oracle; the batched device path mirrors it in ops/.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ state machine as a generator that *yields* bidirectional-extension requests;
 a lockstep driver batches all pending requests across reads into one
 vectorized FMIndex.extend call per direction per tick.  This turns the
 reference's per-read Occ() random-access loop (SURVEY.md hot loop #1) into
-wide batched rank queries — the same data layout the TPU occ kernel
+wide batched rank queries — the same data layout the device occ kernel
 (ops/fmindex_tpu.py) consumes.
 
 Exactness: validated against the per-read path on random reads

@@ -1,4 +1,4 @@
-"""Device-side three-round SMEM seeding ([EXT] mem_collect_intv on TPU).
+"""Device-side three-round SMEM seeding ([EXT] mem_collect_intv on device).
 
 Round 1 (all SMEMs) and round 2 (re-seeding) run on the full bwt_smem1a
 device kernel (ops/smem_tpu.py); round 3 (LAST-like) on the strategy-1
@@ -40,6 +40,9 @@ def _get_dfm(fm: FMIndex, mesh=None) -> DeviceFMIndex:
 
     Under a mesh the occ/SA tables are REPLICATED to every device (the
     per-host-replica layout from SURVEY.md section 5); batch inputs shard."""
+    from ..utils.compile_cache import ensure_compile_cache
+
+    ensure_compile_cache()
     cache = getattr(fm, "_device_fms", None)
     if cache is None:
         cache = fm._device_fms = {}
@@ -96,7 +99,7 @@ def collect_intv_rbegs_batch_device(
     """
     import jax
 
-    from ..ops.seed_fused import M_SLOTS, seed_sa_fused
+    from ..ops.seed_fused import F_PER_READ, R_PER_READ, seed_sa_fused
     from ..utils import metrics as _metrics
     from . import native_fm
 
@@ -109,30 +112,28 @@ def collect_intv_rbegs_batch_device(
     place = _placer(mesh)
     qseq, qlen_j, B, L = _pad_batch(reads, place, dtype=np.int8)
     _metrics.count("device_seed_fused_batches")
-    # 16 covers typical seed loads with ~5x headroom (the cap is per-batch
-    # TOTAL, not per-read); overflow falls back to host SA walks per
-    # interval, so a repeat-heavy batch stays correct, just slower.  Walk
-    # lanes and the pulled tail array both scale with this.
-    r_per_read, f_per_read = 16, 24
+    # the caps are per-batch TOTALS, not per-read; an rbeg overflow falls
+    # back to host SA walks per interval, so a repeat-heavy batch stays
+    # correct, just slower.  Walk lanes and the pulled tail array both
+    # scale with R_PER_READ.
     flat_d, extra_d = seed_sa_fused(
         dfm, qseq, qlen_j,
         min_seed_len=opt.min_seed_len, split_len=opt.split_len,
         split_width=opt.split_width, max_mem_intv=int(opt.max_mem_intv),
-        max_occ=opt.max_occ, M=M_SLOTS, r_per_read=r_per_read,
-        f_per_read=f_per_read,
+        max_occ=opt.max_occ,
     )
     flat, extra = jax.device_get((flat_d, extra_d))
     flat = np.asarray(flat, dtype=np.int64)
     extra = np.asarray(extra, dtype=np.int64)
-    R_cap = B * r_per_read
+    R_cap = B * R_PER_READ
     meta = extra[R_cap + 2 :]
     n_m = meta & 0xFFFF
     ovf = (meta >> 16) != 0
     rbegs_flat = extra[:R_cap]
     total_rbegs = int(extra[R_cap])
     total_mems = int(extra[R_cap + 1])
-    r_ovf = total_rbegs > B * r_per_read
-    mem_ovf = total_mems > B * f_per_read
+    r_ovf = total_rbegs > R_cap
+    mem_ovf = total_mems > B * F_PER_READ
     if r_ovf:
         # rbeg walk lanes exhausted: whole batch demotes to per-interval
         # host SA walks — make the degradation observable (ADVICE r04)

@@ -400,7 +400,7 @@ def _int64_build_fits_ram(l_pac: int) -> bool:
     """Would the in-RAM int64 builder fit comfortably on this host?
 
     Measured peak is ~19 bytes/symbol over the doubled text (116 GB for
-    GRCh38, BENCH_GRCH38_r02.json).  ``auto`` keeps the faster in-RAM
+    GRCh38).  ``auto`` keeps the faster in-RAM
     builder when that fits in ~60% of physical RAM and falls back to the
     bounded-memory builder otherwise — the same speed/memory split bwa's
     AUTO makes between is and rb2 (BwaMemIndex.java:56-71)."""

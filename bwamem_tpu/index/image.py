@@ -1,6 +1,6 @@
 """Index image: one flat, mmap-able file holding the whole index.
 
-TPU-native analog of the reference's .img format — there, the entire
+Analog of the reference's .img format — there, the entire
 bwaidx_t is flattened by [EXT] bwa_idx2mem, written in <=1 GiB chunks
 (jnibwa.c:126-152) and later restored zero-copy from a single read-only mmap
 (jnibwa.c:154-165) so the OS page cache shares it across processes.  We keep

@@ -20,7 +20,7 @@
 //
 // Peak RSS for a 3.1 Gbp reference (N = 6.2e9 + 1): ~26 GB SA + 1.6 GB
 // text + 0.8 GB types + ~11 GB level-1 buffers ≈ 41 GB — inside a 48 GB
-// budget, where the int64 path needed 116 GB (BENCH_GRCH38_r02.json).  The
+// budget, where the int64 path needed 116 GB on a GRCh38 build.  The
 // output (.bwt codes, primary, sampled .sa) is byte-identical to the int64
 // path; tests/test_index_frugal.py fuzzes the equality.
 //

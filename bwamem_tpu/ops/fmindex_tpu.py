@@ -1,15 +1,14 @@
-"""Device-resident FM-index: batched Occ rank queries on TPU.
+"""Device-resident FM-index: batched Occ rank queries on the device.
 
-TPU-native replacement for the reference's hot loop #1 — the memory-bound
+Device replacement for the reference's hot loop #1 — the memory-bound
 random Occ() lookups of [EXT] bwt.c's backward search (SURVEY.md 3.3).
 
 Layout (r04): ONE fused line per checkpoint block — `lines[b] =
 [count_A..count_T (4 x u32), packed BWT words (span/16 x u32)]` — so a
-rank query is a SINGLE row gather plus SWAR popcounts on the VPU.  The
-r03 two-array layout (separate ckpt[idx] + words[idx] gathers) measured
-1.5% of HBM peak on-chip; the v5e gather probe (benchmarks/
-gather_probe.py) showed XLA's gather cost is per-ROW, not per-byte, and a
-fused single-line gather runs ~23x faster.  `span` (chars per line) is a
+rank query is a SINGLE row gather plus SWAR popcounts, where a split
+layout (separate ckpt[idx] + words[idx] arrays) needs two dependent
+gathers; benchmarks/gather_probe.py times both forms on the card.
+`span` (chars per line) is a
 power-of-two multiple of the host oracle's 128-char blocks.
 
 Coordinate domain: row indices / interval bounds use int32 for references
@@ -48,7 +47,7 @@ def _x64_ctx(enable: bool):
 # _rows_for (occ4, bwt_extend, the SMEM bodies, the SA walk) run unchanged
 # under a shard_map whose in_spec shards the tables over `axis`.  The
 # context is consulted at TRACE time — activate it around the shard_map
-# call.  Collectives ride the mesh axis (ICI on hardware).
+# call.  Collectives ride the mesh axis (NVLink between cards).
 # --------------------------------------------------------------------------
 _SHARD_CTX = None  # (axis_name, blocks_per_shard, sa_per_shard)
 
@@ -162,9 +161,8 @@ _M0F = jnp.uint32(0x0F0F0F0F)
 def _select_col(mat, idx):
     """mat[i, idx[i]] as a W-way vectorized select, not a gather.
 
-    TPU gathers cost a full row-gather per row regardless of width; for
-    the small fixed widths here (4 count columns, span//16 words) a chain
-    of ``where`` ops is pure VPU work and ~free next to the line gather.
+    For the small fixed widths here (4 count columns, span//16 words) a
+    chain of ``where`` ops is elementwise work next to the line gather.
     mat: [N, W] (or [N, W] broadcastable); idx: [N] int32 in [0, W).
     """
     W = mat.shape[1]
@@ -312,7 +310,7 @@ def make_occ4_sharded(mesh, axis: str):
     Each device holds a contiguous slice of lines; queries are replicated,
     each shard answers the ones whose line it owns, and a psum merges.
     This is the pangenome-scale layout from SURVEY.md section 5 (sharded
-    occ tables; collectives ride ICI).
+    occ tables; the psum rides NVLink between cards).
     """
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
@@ -436,9 +434,8 @@ def sa_lookup_body(
     for i, width in enumerate(widths):
         unfin = (k % sa_intv) != 0
         n_unfin = unfin.sum()
-        # stable partition, unfinished lanes first, as a sort-based gather:
-        # a B-wide permutation SCATTER serializes on TPU, the bitonic sort
-        # behind argsort is vectorized
+        # stable partition, unfinished lanes first, as a sort-based gather
+        # (argsort) rather than a B-wide permutation scatter
         order = jnp.argsort(jnp.where(unfin, 0, 1), stable=True)
         k = k[order]
         steps = steps[order]

@@ -1,12 +1,11 @@
 """ONE-dispatch device pipeline: seeding + SA walks + chaining + banded
 extension for a whole read batch in a single jitted program.
 
-The r04 device path was host-orchestrated between stages: one fused
+The staged device path is host-orchestrated between stages: one fused
 seed+SA dispatch, a host decode, a separate chain dispatch (or host
-chaining), then per-wave extension dispatches with host-built payloads
-(4 waves/batch in DEVICE_E2E_r04).  Every hop pays a host<->device round
-trip and re-uploads data the device already holds.  Here the entire
-per-batch program runs on device:
+chaining), then per-wave extension dispatches with host-built payloads.
+Every hop pays a host<->device round trip and re-uploads data the device
+already holds.  Here the entire per-batch program runs on device:
 
   seed_sa_core   (ops/seed_fused.py, unchanged semantics)
     -> seed expansion  ([B, S] seeds by pure GATHERS from the walk table —
@@ -19,7 +18,7 @@ per-batch program runs on device:
        retries — the extension kernel (ops/extend_tpu.py, early_exit
        row loop) runs embedded in the same program, so extension
        reference windows are gathered from the device-resident 2-bit pac
-       and never cross the link.
+       and never cross the host<->device boundary.
 
 The host pulls the packed seed tables (for per-read fallback decode) plus
 fixed-shape region arrays; reads that overflow any fixed budget (M seed
@@ -46,12 +45,25 @@ from .seed_fused import seed_sa_core
 
 I32MAX = jnp.int32((1 << 31) - 1)
 
+# per-read host-fallback causes, OR-ed into info[:, 1]
+OVF_SEED_SLOTS = 1  # more than M intervals, or K SMEM snapshots a start
+OVF_SEEDS = 2  # more than S seeds after occurrence expansion
+OVF_CHAINS = 4  # more than C chains
+OVF_LONG_READ = 8  # mem_flt_chained_seeds is live for this length
+OVF_BATCH_TABLES = 16  # the batch's F_cap / R_cap tables overflowed
+OVF_WINDOW = 32  # a chain's reference window exceeds T_cap
+OVF_REGIONS = 64  # more than R regions
+OVF_CAUSES = {
+    "seed_slots": OVF_SEED_SLOTS, "seeds": OVF_SEEDS, "chains": OVF_CHAINS,
+    "long_read": OVF_LONG_READ, "batch_tables": OVF_BATCH_TABLES,
+    "window": OVF_WINDOW, "regions": OVF_REGIONS,
+}
+
 
 def _shl(arr, k, kmax: int):
     """Barrel left-shift each row of [B, W] by per-lane k (0..kmax),
-    zero-filling: log2(kmax) masked static rolls — pure VPU selects, no
-    gathers (TPU gathers cost a full row per gathered ELEMENT, so even a
-    take_along_axis alignment pass would dominate the wave loop)."""
+    zero-filling: log2(kmax) masked static rolls — elementwise selects,
+    no gathers (the plain take_along_axis form is ROADMAP item 3.6)."""
     B, W = arr.shape
     zeros = jnp.zeros_like(arr)
     bit = 0
@@ -66,10 +78,9 @@ def _shl(arr, k, kmax: int):
 def _win_codes(pac_rows, lo, anchor, T: int, l_pac: int):
     """[B, T] reference codes at doubled-domain positions lo..lo+T-1.
 
-    TPU gathers cost a full row per gathered element, so per-base pac
-    lookups are ruinous ([B, T] would be B*T row-gathers).  Instead the
-    window is fetched as ~T/128 row-gathers of 32-byte (128-base) pac
-    rows per lane, unpacked with vector shifts, then aligned with ONE
+    Rather than [B, T] per-base pac lookups, the window is fetched as
+    ~T/128 row-gathers of 32-byte (128-base) pac rows per lane, unpacked
+    with vector shifts, then aligned with ONE
     per-lane row gather.  ``anchor`` (a position inside the window's
     valid span) picks the strand: windows never cross the forward/reverse
     boundary because the caller clamps to [rmax0, rmax1] ([EXT]
@@ -378,7 +389,9 @@ def pipeline_fused_body(
         r0c = tb["rmax0"][lane_n, c]
         r1c = tb["rmax1"][lane_n, c]
         qlen_n = tb["qlen32"]
-        povf = povf | (act & tb["win_ovf"][lane_n, c])
+        povf = povf | jnp.where(
+            act & tb["win_ovf"][lane_n, c], OVF_WINDOW, 0
+        )
 
         # ---- left extension (reversed prefix) ---------------------------
         has_l = act & (s_qb > 0)
@@ -477,7 +490,7 @@ def pipeline_fused_body(
             put(r_rid, rid_f),
             nregs + act.astype(jnp.int32),
         )
-        povf = povf | (act & (nregs >= R))
+        povf = povf | jnp.where(act & (nregs >= R), OVF_REGIONS, 0)
         tc = tc + act.astype(jnp.int32)
         return tc, alive, regs, povf
 
@@ -505,11 +518,15 @@ def pipeline_fused_body(
     regs0 = (
         zRc, zRc, zR, zR, zR, zR, zR, zR, zR, zR, jnp.zeros(B, jnp.int32)
     )
+    bit = lambda cond, b: jnp.where(cond, jnp.int32(b), jnp.int32(0))
     povf0 = (
-        seed_ovf | seed_sovf | chovf | ~fcs_ok
-        | jnp.broadcast_to(mem_ovf | walk_ovf, seed_ovf.shape)
+        bit(seed_ovf, OVF_SEED_SLOTS) | bit(seed_sovf, OVF_SEEDS)
+        | bit(chovf, OVF_CHAINS) | bit(~fcs_ok, OVF_LONG_READ)
+        | bit(jnp.broadcast_to(mem_ovf | walk_ovf, seed_ovf.shape),
+              OVF_BATCH_TABLES)
     )
-    tc0 = jnp.where(povf0, ntask, jnp.zeros(B, jnp.int32))  # skip ovf lanes
+    # skip overflowed lanes
+    tc0 = jnp.where(povf0 != 0, ntask, jnp.zeros(B, jnp.int32))
     st = (tc0, jnp.ones((B, S), bool), regs0, povf0)
 
     sizes = [B]
@@ -552,9 +569,7 @@ def pipeline_fused_body(
     regs_i = jnp.stack(
         [r_qb, r_qe, r_sc, r_ts, r_w, r_scov, r_sl0, r_rid], axis=2
     )  # [B, R, 8] int32
-    info = jnp.stack(
-        [nregs, povf.astype(jnp.int32)], axis=1
-    )  # [B, 2] int32
+    info = jnp.stack([nregs, povf], axis=1)  # [B, 2] int32
     return flat, extra, regs_c, regs_i, info
 
 

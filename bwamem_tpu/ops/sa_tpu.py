@@ -1,6 +1,6 @@
 """Suffix-array construction ON DEVICE: prefix doubling over XLA sort.
 
-TPU-native counterpart of the host SA-IS builder (index/native/sais.cpp) and
+Device counterpart of the host SA-IS builder (index/native/sais.cpp) and
 of the reference's suffix-array builders ([EXT] is.c / rope.c, linked per
 src/main/c/Makefile:27; algorithm selector BwaMemIndex.java:46-80).  Instead
 of induced sorting — a serial, random-access chase that cannot map to a
@@ -8,18 +8,14 @@ vector unit — the device builder uses the classic prefix-doubling
 formulation (Manber–Myers): every round sorts (rank[i], rank[i+k]) key pairs
 with XLA's lexicographic multi-key sort and re-ranks with a segmented
 cumsum, doubling k.  O(n log n) total work, but every round is a full-array
-sort + gather + scan, exactly the shapes TPUs execute at memory bandwidth;
-log2(n) rounds of a fused sort pipeline beat a serial O(n) algorithm on any
-input large enough to matter.
+sort + gather + scan, shapes an accelerator runs at memory bandwidth.
 
 The loop is a `lax.while_loop` with a data-dependent exit (all ranks
 distinct), so XLA compiles one round and iterates on device; there is no
 host round-trip until the final SA is pulled.
 
 Used by index/sais.py when BWAMEM_TPU_DEVICE_SA=1 (host SA-IS remains the
-default: on rigs whose host<->device link is a slow relay, shipping the
-text in and the SA out dominates; on PCIe/ICI-attached hosts the device
-build wins well before 100 Mbp).
+default; the device builder's speed on the card is not measured yet).
 """
 from __future__ import annotations
 

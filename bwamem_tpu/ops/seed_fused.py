@@ -1,13 +1,12 @@
 """Fused device seeding: all three SMEM rounds + occurrence expansion +
 sampled-SA walks in ONE jitted dispatch.
 
-The r03 device path drove seeding as host-orchestrated waves — one
-smem1a/strategy1 dispatch per cursor wave, with EIGHT array pulls through
-the host<->device link per wave (~13 waves per batch).  On a relay-class
-link that is hundreds of round trips; on any link it serializes the
-device.  Here the cursor loops themselves run on device
+The staged device path (engine/seed_device.py::collect_intv_batch_device)
+drives seeding as host-orchestrated waves — one smem1a/strategy1 dispatch
+per cursor wave, with EIGHT array pulls to the host per wave, which
+serializes the device behind the host.  Here the cursor loops themselves run on device
 (``lax.while_loop`` around the smem1a/strategy1 bodies), the emitted
-intervals accumulate in fixed [B, M] slot arrays in HBM, the bwa
+intervals accumulate in fixed [B, M] slot arrays in device memory, the bwa
 ``sample_ks`` occurrence expansion and the sampled-SA compaction-ladder
 walks run in the same program, and the host pulls exactly TWO packed
 arrays per batch.
@@ -34,7 +33,13 @@ from .fmindex_tpu import DeviceFMIndex, sa_lookup_body
 from .seed_tpu import strategy1_body
 from .smem_tpu import K_SLOTS, smem1a_body
 
-M_SLOTS = 48  # per-read interval budget (overflow -> host oracle)
+M_SLOTS = 64  # per-read interval budget (overflow -> host oracle)
+# per-read shares of the batch-total tables: R_cap = B * R_PER_READ
+# resolved occurrences (rbegs), F_cap = B * F_PER_READ intervals.  A batch
+# that overflows either demotes as a whole, so these sit well above the
+# means on a repeat-rich 32 Mbp genome (~18 rbegs and ~9 intervals a read)
+R_PER_READ = 64
+F_PER_READ = 32
 
 
 def _append_wave(accs, n, ovf, wave, wcnt, active, min_seed_len, M):
@@ -52,7 +57,7 @@ def _append_wave(accs, n, ovf, wave, wcnt, active, min_seed_len, M):
     dest = n[:, None] + jnp.cumsum(keep.astype(jnp.int32), axis=1) - keep
     dest = jnp.where(keep & (dest < M), dest, M)  # drop OOB
     # one-hot compaction: each dest slot receives at most one kept element,
-    # so a masked [B, K, M] sum replaces 5 serialized TPU scatters
+    # so a masked [B, K, M] sum replaces 5 scatters
     eq = dest[:, :, None] == jnp.arange(M)[None, None, :]  # [B, K, M]
     hit = eq.any(axis=1)  # [B, M]
     out = tuple(
@@ -325,7 +330,8 @@ _seed_sa_fused_kernel = partial(
 def seed_sa_fused(
     dfm: DeviceFMIndex, qseq, qlen, *, min_seed_len: int, split_len: int,
     split_width: int, max_mem_intv: int, max_occ: int,
-    M: int = M_SLOTS, r_per_read: int = 64, f_per_read: int = 24,
+    M: int = M_SLOTS, r_per_read: int = R_PER_READ,
+    f_per_read: int = F_PER_READ,
 ):
     """One-dispatch seeding+SA for a padded [B, L] int8 batch.
 

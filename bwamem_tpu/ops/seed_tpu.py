@@ -1,11 +1,10 @@
-"""Batched seeding primitives on TPU.
+"""Batched seeding primitives on the device.
 
 Hot loop #1 of the reference engine is the memory-latency-bound random Occ
-lookup chain of backward search (SURVEY.md section 3.3).  On TPU the same
-work is a lockstep batch: every read advances one base per step, each step
-is ONE fused occ-line gather over the HBM-resident index (the r04 layout
-of ops/fmindex_tpu.py) — exactly the access pattern that measured ~23x
-faster than the split two-array gathers (benchmarks/gather_probe.py).
+lookup chain of backward search (SURVEY.md section 3.3).  On the device
+the same work is a lockstep batch: every read advances one base per step,
+each step is ONE fused occ-line gather over the device-resident index
+(the fused-line layout of ops/fmindex_tpu.py).
 
 This module provides the device-side backward-search / forward-extension
 loops (lax.while_loop lockstep with per-lane masks).  The full three-round

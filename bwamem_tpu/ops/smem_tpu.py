@@ -9,7 +9,7 @@ branchy bookkeeping expressed as masked fixed-shape state:
 
   * forward pass: a ``lax.while_loop`` advancing every lane one base per
     tick — ONE fused occ-line gather of [2B] rows per tick
-    (ops/fmindex_tpu.py r04 layout) — recording an interval snapshot
+    (ops/fmindex_tpu.py fused-line layout) — recording an interval snapshot
     whenever a lane's interval size changes, into a fixed [B, K] slot
     array;
   * backward pass: a ``lax.while_loop`` over backward positions whose
@@ -17,10 +17,11 @@ branchy bookkeeping expressed as masked fixed-shape state:
     then replays the oracle's sequential curr/emit semantics
     (first-dying-slot emission, size-dedup) as a pure-vector
     ``lax.fori_loop`` over the precomputed slot results — no gathers
-    inside the slot scan (r03 issued 4 gathers per slot per tick).
+    inside the slot scan.
 
 Lanes whose interval count exceeds K flag overflow and fall back to the
-host oracle read-by-read (rare; K=24 covers typical short reads).
+host oracle read-by-read (rare at K=128; at K=64 1% of the 150 bp reads
+of a repeat-rich 64 Mbp genome overflowed, at K=24 6% of a 2 Mbp one).
 
 Bit-exact against engine/seed.py::collect_intv (tests/test_smem_tpu.py).
 """
@@ -33,7 +34,7 @@ import jax.numpy as jnp
 
 from .fmindex_tpu import DeviceFMIndex, _extend_core, _select_col
 
-K_SLOTS = 24  # max forward interval snapshots / SMEMs per start
+K_SLOTS = 128  # max forward interval snapshots / SMEMs per start
 
 
 def smem1a_body(
@@ -89,8 +90,8 @@ def smem1a_body(
         changed = alive & ~stop_a & (es != s)
         small = es < min_intv
         append = stop_a | changed
-        # one-hot slot write: per-row scatters serialize on TPU, a K-wide
-        # masked select is pure VPU work (r04: ~4 scatters/tick removed)
+        # one-hot slot write: a K-wide masked select instead of per-row
+        # scatters
         idx = jnp.clip(cnt, 0, K_SLOTS - 1)
         sel = (jnp.arange(K_SLOTS)[None, :] == idx[:, None]) & append[:, None]
         put = lambda r, v: jnp.where(sel, v.astype(r.dtype)[:, None], r)

@@ -4,7 +4,7 @@ Replaces the reference's two parallelism layers (kt_for worker pool inside
 libbwa + documented one-mmap-per-JVM cluster use, SURVEY.md section 2.3)
 with jax.sharding: read batches shard over the ``data`` axis, the FM-index
 either replicates per device (GRCh38-class) or shards its occ tables over
-``idx`` (pangenome-class), and collectives ride ICI.
+``idx`` (pangenome-class), and collectives ride NVLink between cards.
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ index image to every node with Yarn --files, mmap once per JVM, align
 Spark partitions independently (BwaMemIndex.java:22-27).  Here it is
 first-class:
 
-  * hosts join a jax.distributed job (ICI within a slice, DCN across),
+  * hosts join a jax.distributed job (NVLink within a host, the network
+    across hosts),
   * each host opens the same index image (replicated; the mmap/page-cache
     sharing property of the flat image carries over),
   * read batches shard per host by ordinal; each host runs the batched

@@ -2,12 +2,12 @@
 
 The reference's entire parallelism story is pthreads-in-a-process plus
 "copy the index to every node" (SURVEY.md section 2.3 inventory).  The
-TPU-native equivalents are first-class here:
+device-mesh equivalents are first-class here:
 
   * ``data``  — batches of reads, data-parallel (the kt_for / Spark analog)
   * ``idx``   — the occ/SA tables sharded across devices for references too
     large for one chip's int32 domain (pangenome scale); rank queries merge
-    with psum over ICI.
+    with psum over NVLink.
 """
 from __future__ import annotations
 

@@ -161,7 +161,7 @@ def synthetic_fmindex(seq_len: int, rng, sa_intv: int = 4096):
     np.bitwise_not(words[: nb // 2], out=words[nb // 2 :])
     # true per-block symbol counts via the two bit-planes (vectorized
     # SWAR), chunked with preallocated scratch: fresh gigabyte temporaries
-    # fault at ~0.05 GB/s on some hypervisors (see CLAUDE.md), so reuse
+    # fault at ~0.05 GB/s on some hypervisors, so reuse
     # the same buffers across chunks
     M55 = np.uint32(0x55555555)
     M33 = np.uint32(0x33333333)

@@ -5,8 +5,6 @@
    fast suite only exercised numpy; pin equality directly on small inputs,
    including n % 128 != 0 and n % 16 != 0 tails, plus the deinterleave
    round-trip.
-2. _pallas_wave_ok's int32 packing guard must test the SAME bound the
-   Pallas kernel asserts (qpow from the 8-padded query width).
 """
 import numpy as np
 import pytest
@@ -47,19 +45,3 @@ def test_native_interleave_large_unaligned():
     codes = rng.integers(0, 4, size=n).astype(np.uint8)
     assert np.array_equal(native_sais.interleave_bwt(codes), _numpy_interleave(codes))
 
-
-def test_pallas_guard_matches_kernel_assert():
-    from bwamem_tpu.ops.extend_pallas import packed_qpow_bound
-
-    # For Q < 8 the padded width is 8, so qpow must be >= 8 (the kernel's
-    # value), not the 2/4 a naive unpadded computation would give.
-    for q in (1, 2, 3, 5, 7):
-        qpow, _ = packed_qpow_bound(q, 1)
-        assert qpow == 8
-    qpow, _ = packed_qpow_bound(9, 1)
-    assert qpow == 16
-    # the guard and the kernel assert agree at the overflow boundary
-    for q in (100, 1000, 5000):
-        for sc in (1, 5, 100, 1000):
-            qpow, ok = packed_qpow_bound(q, sc)
-            assert ok == ((2 * q * max(sc, 1) + 65536) * qpow < (1 << 31))

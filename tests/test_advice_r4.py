@@ -67,8 +67,13 @@ def test_r_overflow_counted_and_oracle_equal(repeat_idx):
     fm, idx, motif = repeat_idx
     opt = MemOptions()
     # every read sits on the ~700-occurrence motif; with max_occ 500 a
-    # handful of reads exceeds the B*16-lane global walk budget
-    reads = [np.asarray(motif, np.uint8).copy() for _ in range(8)]
+    # few dozen reads exceed the B*R_PER_READ-lane global walk budget
+    from bwamem_tpu.engine.seed_device import _B_BUCKETS
+    from bwamem_tpu.ops.seed_fused import R_PER_READ
+
+    n = 2 * _B_BUCKETS[0] * R_PER_READ // 500 + 1
+    assert n <= _B_BUCKETS[0]  # one batch bucket, budget B*R_PER_READ
+    reads = [np.asarray(motif, np.uint8).copy() for _ in range(n)]
     metrics.reset()
     intervals_list, rbegs_list = collect_intv_rbegs_batch_device(
         opt, fm, reads

@@ -1,6 +1,6 @@
 """Options ABI golden tests.
 
-The TPU analog of the reference's testOptsSize ABI-drift tripwire
+The analog of the reference's testOptsSize ABI-drift tripwire
 (BwaMemIndexTest.java:38-43): the packed struct must stay exactly 168 bytes
 with every field at its documented offset (SURVEY.md section 2.4,
 BwaMemAligner.java:46-138).

@@ -1,7 +1,7 @@
 """Device (prefix-doubling) suffix-array builder vs the host oracles.
 
 The reference treats SA construction as a host-side offline step ([EXT]
-is.c / rope.c via bwa_idx_build, org_…_BwaMemIndex.c:59); the TPU redesign
+is.c / rope.c via bwa_idx_build, org_…_BwaMemIndex.c:59); the redesign
 adds an on-device builder (ops/sa_tpu.py).  These tests pin it to the
 numpy/native oracles, including the adversarial string classes that stress
 prefix doubling (long runs: maximal rank-tie chains)."""
